@@ -1,0 +1,192 @@
+"""Config system: model configs, input-shape configs, registry.
+
+A copy of `repro.configs.base`: the configs are plain data, but the JAX
+package can only be imported through `repro/__init__.py`, which imports jax.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    mlp: str = "swiglu"             # swiglu | gelu
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_expert: int = 0               # per-expert hidden dim (fine-grained MoE)
+    capacity_factor: float = 1.25
+    # --- SSM (Mamba2 / SSD) ---
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+    ssm_chunk: int = 256
+    # --- hybrid (Zamba2-style: shared attention block every k SSM layers) ---
+    attn_every: int = 0
+    # --- modality frontends (stubs; see DESIGN.md Sec. 4) ---
+    n_codebooks: int = 0            # audio: EnCodec codebooks
+    n_img_tokens: int = 0           # vlm: precomputed patch embeddings per sample
+    # --- implementation knobs (the tuning surface; paper Obs. 1) ---
+    attn_impl: str = "blockwise"    # blockwise | naive | pallas
+    q_block: int = 256
+    use_scan: bool = True           # scan over layers (compile-time/HLO size)
+    remat: str = "block"            # none | block  (activation checkpointing)
+    sub_quadratic: bool = False     # set for ssm/hybrid: long_500k is runnable
+    residual_shard: bool = False    # Megatron-SP-style: shard the residual
+    #                                 stream's d_model over `model` between blocks
+    #                                 (cuts saved-activation memory 16x; adds
+    #                                 per-layer all-gathers — a §Perf knob)
+    fused_qkv: bool = False         # single (D, (H+2K)*hd) projection: one dx
+    #                                 all-reduce instead of three in backward
+    fast_norm: bool = False         # rms_norm without fp32 materialization
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_headdim if self.ssm_headdim else 0
+
+    def param_count(self) -> int:
+        """Analytic parameter count (for MODEL_FLOPS = 6*N*D in the roofline)."""
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hd, H, K = self.head_dim, self.n_heads, self.n_kv_heads
+        attn = d * H * hd + 2 * d * K * hd + H * hd * d      # q,k,v,o
+        if self.mlp == "swiglu":
+            mlp = 3 * d * f
+        else:
+            mlp = 2 * d * f
+        if self.family == "moe":
+            fe = self.d_expert or f
+            mlp = self.n_experts * 3 * d * fe + self.n_shared_experts * 3 * d * fe \
+                + d * self.n_experts
+        per_layer = attn + mlp + 2 * d
+        if self.family == "ssm":
+            per_layer = self._ssm_layer_params()
+        if self.family == "hybrid":
+            n_attn = L // max(self.attn_every, 1)
+            per_layer = self._ssm_layer_params()
+            emb = V * d
+            shared = attn + 3 * d * f + 2 * d + 2 * d * d  # one shared block + in-proj
+            return L * per_layer + shared + emb + (0 if self.tie_embeddings else V * d)
+        emb = V * d * (self.n_codebooks or 1)
+        head = 0 if self.tie_embeddings else V * d * (self.n_codebooks or 1)
+        return L * per_layer + emb + head
+
+    def _ssm_layer_params(self) -> int:
+        d, di, N = self.d_model, self.d_inner, self.ssm_state
+        H = self.ssm_heads
+        in_proj = d * (2 * di + 2 * N + H)
+        conv = (di + 2 * N) * self.ssm_conv
+        out = di * d
+        return in_proj + conv + out + 2 * H + di + 2 * d
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top-k + shared experts count)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        hd, H, K = self.head_dim, self.n_heads, self.n_kv_heads
+        attn = d * H * hd + 2 * d * K * hd + H * hd * d
+        fe = self.d_expert or f
+        mlp = (self.top_k + self.n_shared_experts) * 3 * d * fe + d * self.n_experts
+        per_layer = attn + mlp + 2 * d
+        return L * per_layer + 2 * V * d
+
+    def reduced(self) -> "ModelConfig":
+        """Tiny same-family config for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            n_layers=min(self.n_layers, 2 if self.family != "hybrid" else 4),
+            d_model=128,
+            n_heads=4,
+            n_kv_heads=2 if 0 < self.n_kv_heads < self.n_heads else (4 if self.n_kv_heads else 0),
+            d_ff=256,
+            d_expert=64 if self.d_expert else 0,
+            vocab=256,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=32 if self.ssm_state else 64,
+            ssm_chunk=8,
+            attn_every=2 if self.attn_every else 0,
+            n_img_tokens=8 if self.n_img_tokens else 0,
+            q_block=16,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+    def reduced(self) -> "ShapeConfig":
+        return dataclasses.replace(self, name=self.name + "-reduced",
+                                   seq_len=min(self.seq_len, 64), global_batch=4)
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """long_500k needs sub-quadratic context handling: run for ssm/hybrid, skip for
+    pure full-attention archs (DESIGN.md Sec. 4)."""
+    if shape.name == "long_500k" and not model.sub_quadratic:
+        return False, "long_500k skipped: pure full-attention arch (see DESIGN.md)"
+    return True, ""
+
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    _ensure_loaded()
+    if name.endswith("-reduced"):
+        return get_config(name[: -len("-reduced")]).reduced()
+    return _REGISTRY[name]
+
+
+def list_configs():
+    _ensure_loaded()
+    return sorted(_REGISTRY)
+
+
+def _ensure_loaded():
+    if _REGISTRY:
+        return
+    from . import (  # noqa: F401
+        stablelm_1_6b, mistral_large_123b, qwen1_5_4b, smollm_135m, internvl2_26b,
+        dbrx_132b, deepseek_moe_16b, zamba2_7b, mamba2_2_7b, musicgen_medium,
+    )

@@ -1,0 +1,9 @@
+"""deepseek-moe-16b [moe] — 2 shared + 64 routed top-6, fine-grained — arXiv:2401.06066 (hf)."""
+from .base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek-moe-16b", family="moe",
+    n_layers=28, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=1408, vocab=102400,
+    mlp="swiglu", rope_theta=10000.0,
+    n_experts=64, top_k=6, n_shared_experts=2, d_expert=1408, capacity_factor=1.25,
+))

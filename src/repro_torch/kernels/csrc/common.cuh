@@ -1,0 +1,36 @@
+// Shared helpers for the port's kernels: dtype codes and conversions.
+//
+// Every kernel library exports plain C functions (no PyTorch headers), which
+// take device pointers and the stream as `void*`, a dtype code, and return the
+// `cudaError_t` of the launch as an int (0 is success).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace repro_torch {
+
+// Dtype codes shared with the Python wrappers (kernels/_build.py DTYPE_CODES).
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+
+// Round to nearest even, as torch's and jnp's casts to bf16 do.
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+    return __float2bfloat16_rn(v);
+}
+
+}  // namespace repro_torch
+
+extern "C" const char* kernel_error_string(int code) {
+    return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
