@@ -8,19 +8,32 @@ Phases, each fatal on failure (the script exits nonzero and prints no result):
      and the toolchain (torch, CUDA, nvcc, Triton);
   2. builds every kernel from `src/repro_torch/kernels/csrc` (one nvcc each, in
      parallel) and prints the build time and ptxas' register report;
-  3. holds each kernel against its plain PyTorch version on the card, in fp32
-     and bf16, at the serving shapes plus a ragged one, and times the kernel,
-     the plain version and one PyTorch library call (device time, by CUDA
-     graph replay) beside its bound, and the kernel's eager per-call time;
+  3. holds each kernel against its plain PyTorch version on the card: K1 and
+     K2 in fp32 and bf16 at the serving and training shapes plus ragged ones
+     (and K2 at head dim 32, the reduced preset's), K3 and K4
+     bit for bit on the fp32, bf16 and int8 wires at smollm-135m's gradient
+     leaves in 4 MiB buckets and on a ragged table with zero-size leaves; and
+     times the kernel, the plain version and (where there is one) a PyTorch
+     library call (device time, by CUDA graph replay) beside its bound, and
+     the kernel's eager per-call time;
   4. serves smollm-135m at full width (random weights from seed 0, batch 8,
      128-token prompts, 32 greedy new tokens) through `BatchedServer`, checks
      the kernels' launch counts on that run, and reruns the same tokens
      teacher-forced through the kernels and through the plain versions;
-  5. prints a JSON line with each kernel's numbers, then the device line last.
+  5. trains smollm-135m at full width through `Trainer` with explicit data
+     parallelism on NCCL at world size 1 (bf16 params from seed 0, seq 4096,
+     global batch 8): 3 steps on the fp32 wire and 3 on the int8 wire, with
+     the launch counts checked, unpack(pack(g)) == g on the first step's
+     gradients, the first step's per-token losses through the kernels against
+     the plain versions within twice the bf16 noise floor, and one more step
+     of each under the profiler for the device time;
+  6. prints a JSON line with each kernel's numbers on each path that runs it
+     (serving, training, and for K3/K4 each wire), then the device line last.
 """
 from __future__ import annotations
 
 import contextlib
+import datetime
 import importlib.util
 import json
 import subprocess
@@ -30,16 +43,22 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ShapeConfig, get_config  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import bucket_codec as codec  # noqa: E402
 from repro_torch.kernels import flash_attention as fa_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn_kernel  # noqa: E402
-from repro_torch.models.model import Model  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.models.model import Model, flat_leaves  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.runtime import steps as rsteps  # noqa: E402
 from repro_torch.runtime.serve import BatchedServer, ServeConfig  # noqa: E402
+from repro_torch.runtime.train import Trainer, TrainConfig  # noqa: E402
 
 # H100 SXM data sheet: HBM rate, and the peak rates for the kernels' input
 # types (bf16 on the tensor cores, float32 outside them), as the bound's
@@ -69,9 +88,20 @@ ARCH, BATCH, PROMPT, NEW_TOKENS = "smollm-135m", 8, 128, 32
 NOISE_FACTOR = 2.0
 
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu"}
+           "rmsnorm": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+           "bucket_pack": "src/repro_torch/kernels/csrc/bucket_pack.cu",
+           "bucket_unpack": "src/repro_torch/kernels/csrc/bucket_unpack.cu"}
 REPLACES = {"flash_attention": "src/repro/kernels/flash_attention.py:24",
-            "rmsnorm": "src/repro/kernels/rmsnorm.py:17"}
+            "rmsnorm": "src/repro/kernels/rmsnorm.py:17",
+            "bucket_pack": "src/repro/kernels/bucket_codec.py:178",
+            "bucket_unpack": "src/repro/kernels/bucket_codec.py:247"}
+
+# Training: train_4k's sequence length; its global batch of 256 is cut to 8
+# to fit one card (activations and the (8, 4095, 49152) logits).
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 8, 3
+BUCKET_BYTES = 4 << 20
+# The kernels' names as the profiler reports them, for the codec's share.
+CODEC_KERNELS = ("pack_cast_kernel", "pack_int8_pass", "unpack_kernel")
 
 
 def card_line() -> str:
@@ -127,11 +157,12 @@ def device_ms(fn, calls: int = 10, budget_s: float = 0.1) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
-def timings(kernel, plain, library) -> dict:
+def timings(kernel, plain, library, calls: int = 10) -> dict:
     """Device times (the JSON's ms, plain_ms, library_ms) and the kernel's
-    eager per-call time."""
-    return dict(ms=device_ms(kernel), plain_ms=device_ms(plain), library_ms=device_ms(library),
-                call_ms=call_ms(kernel))
+    eager per-call time. `calls` per graph: 1 where the plain version's
+    intermediates are tens of GB."""
+    return dict(ms=device_ms(kernel, calls), plain_ms=device_ms(plain, calls),
+                library_ms=device_ms(library, calls), call_ms=call_ms(kernel))
 
 
 def bound(nbytes: float, nops: float, dtype) -> tuple:
@@ -145,15 +176,15 @@ def max_violation(got, want, atol, rtol) -> tuple:
     return err.max().item(), excess
 
 
-def compare_flash(bh, s, dtype, causal, gen):
-    q, k, v = (torch.randn(bh, s, fa_kernel.HEAD_DIM, generator=gen, device="cuda").to(dtype)
+def compare_flash(bh, s, dtype, causal, gen, hd=64):
+    q, k, v = (torch.randn(bh, s, hd, generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     atol, rtol = TOL[("flash_attention", dtype)]
     err, excess = max_violation(got, want, atol, rtol)
-    hd, es = q.shape[-1], q.element_size()
+    es = q.element_size()
     pairs = s * (s + 1) // 2 if causal else s * s
     b_ms, b_by = bound(4 * bh * s * hd * es, 4 * hd * pairs * bh, dtype)
     return dict(
@@ -164,7 +195,8 @@ def compare_flash(bh, s, dtype, causal, gen):
                   lambda: ref.attention_ref(q, k, v, causal=causal),
                   # (1, BH, S, hd): the 4-D layout takes SDPA's fused path
                   lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                         is_causal=causal)))
+                                                         is_causal=causal),
+                  calls=1 if s >= 4096 else 10))
 
 
 def compare_rmsnorm(r, d, dtype, gen):
@@ -184,12 +216,63 @@ def compare_rmsnorm(r, d, dtype, gen):
                   lambda: F.rms_norm(x, (d,), weight=sc, eps=1e-5)))
 
 
+def smollm_grad_leaves(cfg, dtype, gen):
+    """Random leaves shaped as smollm-135m's gradients, in `flat_leaves` order."""
+    shapes = flat_leaves(T.dense_param_defs(cfg))
+    return [(torch.randn(sh, generator=gen, device="cuda") * 1e-3).to(dtype) for sh in shapes]
+
+
+def compare_codec(table, leaves, wire, gen, label):
+    """K3 and K4 against `pack_ref` / `unpack_ref` on the same CUDA tensors,
+    bit for bit, with timings. The int8 wire adds an error-feedback state."""
+    nb, cap = table.n_buckets, table.bucket_elems
+    err = (torch.randn(nb, cap, generator=gen, device="cuda") * 1e-5
+           if wire == "int8" else None)
+    scale = 1.0 / 3
+    got = codec.bucket_pack(table, leaves, scale, wire, err)
+    want = ref.pack_ref(table, leaves, scale, wire, err)
+    back = codec.bucket_unpack(table, got[0], leaves, got[1])
+    back_want = ref.unpack_ref(table, want[0], leaves, want[1])
+    torch.cuda.synchronize()
+    pack_ok = all((a is None and b is None) or (a is not None and b is not None and
+                                                a.dtype == b.dtype and torch.equal(a, b))
+                  for a, b in zip(got, want))
+    unpack_ok = all(torch.equal(a, b) for a, b in zip(back, back_want))
+    pack_err = max(((a.float() - b.float()).abs().max().item() if a is not None and a.numel()
+                    else 0.0) for a, b in zip(got, want))
+    unpack_err = max(((a - b).abs().max().item() if a.numel() else 0.0)
+                     for a, b in zip(back, back_want))
+    total, carrier = table.total_elems, nb * cap
+    leaf_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    wire_bytes = carrier * codec.WIRE_DTYPES[wire].itemsize
+    if wire == "int8":   # reads leaves and err; writes q, scales and new_err
+        p_bytes, p_ops = leaf_bytes + 4 * carrier + wire_bytes + 4 * nb + 4 * carrier, 6 * carrier
+    else:                # reads leaves; writes the carrier
+        p_bytes, p_ops = leaf_bytes + wire_bytes, carrier
+    # reads the carrier's live part (and the scales); writes fp32 leaves
+    u_bytes = total * codec.WIRE_DTYPES[wire].itemsize + 4 * total + (4 * nb if wire == "int8" else 0)
+    rows = []
+    for name, ok, err_abs, nbytes, nops, kern, plain in (
+            ("bucket_pack", pack_ok, pack_err, p_bytes, p_ops,
+             lambda: codec.bucket_pack(table, leaves, scale, wire, err),
+             lambda: ref.pack_ref(table, leaves, scale, wire, err)),
+            ("bucket_unpack", unpack_ok, unpack_err, u_bytes, total,
+             lambda: codec.bucket_unpack(table, got[0], leaves, got[1]),
+             lambda: ref.unpack_ref(table, got[0], leaves, got[1]))):
+        b_ms, b_by = bound(nbytes, nops, torch.float32)
+        rows.append(dict(name=name, shape=[nb, cap], dtype=f"{str(leaves[0].dtype)[6:]}->{wire}",
+                         table=label, max_abs_err=err_abs, atol=0.0, rtol=0.0, ok=ok,
+                         bound_ms=b_ms, bound_by=b_by, ms=device_ms(kern),
+                         plain_ms=device_ms(plain), library_ms=None, call_ms=call_ms(kern)))
+    return rows
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain versions, for the reference run."""
     saved = ops.rmsnorm, ops.flash_attention
 
-    def flash_plain(q, k, v, *, causal=True):
+    def flash_plain(q, k, v, *, causal=True, **_):
         b, s, h, hd = q.shape
         fold = lambda t: t.transpose(1, 2).reshape(b * h, s, hd)
         out = ref.attention_ref(fold(q), fold(k), fold(v), causal=causal)
@@ -213,6 +296,138 @@ def teacher_forced(model: Model, shape, prompts: np.ndarray, out: np.ndarray) ->
                                      prompts.shape[1] + t)
         steps.append(logits[:, -1].float())
     return torch.stack(steps, dim=1)                      # (B, new_tokens, V)
+
+
+def profile_step(trainer, params, opt_state, batch):
+    """One more training step under torch.profiler: the device's busy time
+    (the union of its kernels' intervals), the codec kernels' time, and the
+    step's host time around it; prints the kernels that took the most device
+    time. (None, None, host) if no device event shows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3
+    spans, codec_us, by_name = [], 0.0, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+            if any(k in e.name for k in CODEC_KERNELS):
+                codec_us += us
+    if not spans:
+        return None, None, host
+    total = sum(by_name.values())
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"  device time {us / 1e3:10.3f} ms ({us / total:.4f})  {name[:90]}")
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3, codec_us / 1e3, host
+
+
+def train_run(cfg, shape, compress_bits, checks: bool) -> dict:
+    """3 steps of explicit-DP training through `Trainer` (NCCL, world size 1)
+    on one wire, their launch counts, one profiled step more; with `checks`,
+    the first step's gradient round trip and loss against the plain versions."""
+    trainer = Trainer(cfg, shape, OptConfig(warmup_steps=2, decay_steps=100),
+                      TrainConfig(steps=TRAIN_STEPS, log_every=1, explicit_dp=True,
+                                  bucket_bytes=BUCKET_BYTES, compress_bits=compress_bits))
+    params, opt_state = trainer.init_state(seed=0)
+    batch0 = trainer.data.batch_at(0)
+    out = {}
+    if checks:
+        # unpack(pack(g)) on the fp32 wire gives back the first step's
+        # gradient leaves exactly (a bf16 -> fp32 cast and a multiply by 1)
+        _, grads = rsteps.value_and_grad(trainer.model, params, batch0)
+        g = flat_leaves(grads)
+        table = codec.make_table([t.numel() for t in g], BUCKET_BYTES // 4, reverse=False)
+        c, _, _ = codec.pack(table, g)
+        back = codec.unpack(table, c, g)
+        if not all(torch.equal(a, b.float()) for a, b in zip(back, g)):
+            raise AssertionError("fp32 unpack(pack(g)) differs from the step's gradients")
+        del grads, g, c, back
+        # per-token losses of step 0 through the kernels, the plain versions
+        # and the plain versions on an fp32 copy of the weights
+        with torch.no_grad():
+            nll_k = trainer.model.token_nll(batch0)
+            fp32_model = Model(cfg, device="cuda", dtype=torch.float32).load_params(params)
+            with plain_versions():
+                nll_p = trainer.model.token_nll(batch0)
+                nll_f = fp32_model.token_nll(batch0)
+            del fp32_model
+        diff = (nll_k - nll_p).abs().max().item()
+        noise = (nll_p - nll_f).abs().max().item()
+        out.update(nll_diff=diff, nll_noise=noise, loss_kernel=nll_k.mean().item(),
+                   loss_plain=nll_p.mean().item(), loss_fp32=nll_f.mean().item())
+        print(f"step-0 per-token loss {tuple(nll_k.shape)}: mean kernel {out['loss_kernel']:.6f}, "
+              f"plain {out['loss_plain']:.6f}, fp32 weights {out['loss_fp32']:.6f}; kernel vs "
+              f"plain max abs diff {diff:.4e} (tol {NOISE_FACTOR} x {noise:.4e}, plain bf16 vs "
+              f"fp32 weights)")
+        if not all(torch.isfinite(t).all() for t in (nll_k, nll_p, nll_f)):
+            raise AssertionError("non-finite per-token losses")
+        if diff > NOISE_FACTOR * noise:
+            raise AssertionError(f"kernel vs plain per-token losses differ by {diff}, beyond "
+                                 f"{NOISE_FACTOR} x the bf16 noise floor {noise}")
+        del nll_k, nll_p, nll_f
+        torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = trainer.run(params, opt_state)
+    launches = ops.launch_counts()
+    L = cfg.n_layers
+    want = {"rmsnorm": TRAIN_STEPS * (4 * L + 1), "flash_attention": TRAIN_STEPS * 2 * L,
+            "bucket_pack": TRAIN_STEPS, "bucket_unpack": TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} on {TRAIN_STEPS} training steps, "
+                             f"expected {want}")
+    rows = res["metrics"]
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows):
+        raise AssertionError(f"non-finite loss or grad norm: {rows}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = {k: torch.as_tensor(v) for k, v in trainer.data.batch_at(TRAIN_STEPS).items()}
+    dev_ms, codec_ms, prof_host = profile_step(trainer, trainer.params, trainer.opt_state, batch)
+    tokens = shape.global_batch * shape.seq_len
+    host = [r["time_s"] * 1e3 for r in rows]
+    steady = float(np.median(host[1:]))
+    wire = "int8" if compress_bits else "fp32"
+    for r in rows:
+        print(f"train {wire} step {r['step']}: loss {r['loss']:.6f} grad_norm "
+              f"{r['grad_norm']:.6f} lr {r['lr']:.3e} host {r['time_s'] * 1e3:.3f} ms "
+              f"({tokens / r['time_s']:.1f} tokens/s)")
+    dev_txt = ("not measured (the profiler saw no device activity)" if dev_ms is None else
+               f"{dev_ms:.3f} ms busy, pack+unpack {codec_ms:.4f} ms "
+               f"({codec_ms / dev_ms:.4f} of it), idle share {1 - dev_ms / prof_host:.4f} of "
+               f"the profiled step's {prof_host:.3f} ms host time")
+    print(f"train {wire}: steady host {steady:.3f} ms/step, {tokens / steady * 1e3:.1f} tokens/s; "
+          f"device (profiled step {TRAIN_STEPS}): {dev_txt}; peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}")
+    out.update(launches=launches, rows=rows, steady_ms=steady, dev_ms=dev_ms, codec_ms=codec_ms)
+    del trainer, params, opt_state, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase() -> dict:
+    cfg = get_config(ARCH)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    print(f"train {cfg.name} (L={cfg.n_layers}, d={cfg.d_model}) bf16, seq {TRAIN_SEQ}, global "
+          f"batch {TRAIN_BATCH} (train_4k's 256 cut to fit one card), explicit DP on NCCL at "
+          f"world size 1, {BUCKET_BYTES >> 20} MiB buckets")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=datetime.timedelta(minutes=5))
+    try:
+        fp32 = train_run(cfg, shape, 0, checks=True)
+        int8 = train_run(cfg, shape, 8, checks=False)
+    finally:
+        dist.destroy_process_group()
+    return {"fp32": fp32, "int8": int8}
 
 
 def main() -> int:
@@ -245,22 +460,44 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # 3. Each kernel against its plain version.
+    # 3. Each kernel against its plain version: K1 and K2 at the serving
+    # prefill's and decode's shapes, the training step's (BH = 8 x 9 heads at
+    # S = 4096; 8 x 4096 rows), ragged ones, and K2 at head dim 32 (the
+    # launcher's --reduced preset).
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for s, causal in ((128, True), (2048, True), (100, True), (128, False)):
+        for s, causal in ((128, True), (2048, True), (TRAIN_SEQ, True), (100, True),
+                          (128, False)):
             rows.append(compare_flash(BATCH * 9, s, dtype, causal, gen))
-        for r in (BATCH * PROMPT, BATCH, 1000):
+        rows.append(compare_flash(16, 64, dtype, True, gen, hd=32))
+        for r in (BATCH * PROMPT, BATCH, TRAIN_BATCH * TRAIN_SEQ, 1000):
             rows.append(compare_rmsnorm(r, 576, dtype, gen))
+    # K3 and K4: smollm-135m's gradient leaves in 4 MiB buckets (the training
+    # path's table), and a ragged table with zero-size leaves.
+    cfg = get_config(ARCH)
+    for dtype in (torch.bfloat16, torch.float32):
+        leaves = smollm_grad_leaves(cfg, dtype, gen)
+        table = codec.make_table([t.numel() for t in leaves], BUCKET_BYTES // 4, reverse=False)
+        for wire in (("fp32", "bf16", "int8") if dtype == torch.bfloat16 else ("fp32",)):
+            rows += compare_codec(table, leaves, wire, gen, "smollm-135m")
+        del leaves
+    ragged = [torch.randn(sh, generator=gen, device="cuda").to(torch.bfloat16)
+              for sh in ((0, 3), (7, 5), (0,), (1000,), (13,), (0,))]
+    for wire in ("fp32", "bf16", "int8"):
+        rows += compare_codec(codec.make_table([t.numel() for t in ragged], 64, reverse=True),
+                              ragged, wire, gen, "ragged")
+    torch.cuda.empty_cache()
+    fmt = lambda v: "-" if v is None else f"{v:.5f}"
     print("ms, plain_ms, library_ms: device time per call (CUDA graph replay); call_ms: "
           "the kernel's eager per-call time (events around back-to-back calls)")
-    print("kernel           dtype     shape             causal  max_abs_err  tol(a,r)      "
+    print("kernel           dtype           shape             causal  max_abs_err  tol(a,r)      "
           "ms         plain_ms   library_ms  call_ms    bound_ms   bound_by")
     for r in rows:
-        print(f"{r['name']:<16} {r['dtype']:<9} {str(r['shape']):<17} {str(r.get('causal', '')):<7} "
+        print(f"{r['name']:<16} {r['dtype']:<15} {str(r['shape']):<17} "
+              f"{str(r.get('causal', r.get('table', ''))):<7} "
               f"{r['max_abs_err']:<12.3e} {r['atol']:.0e},{r['rtol']:.0e}  {r['ms']:<10.5f} "
-              f"{r['plain_ms']:<10.5f} {r['library_ms']:<11.5f} {r['call_ms']:<10.5f} "
+              f"{r['plain_ms']:<10.5f} {fmt(r['library_ms']):<11} {r['call_ms']:<10.5f} "
               f"{r['bound_ms']:<10.5f} {r['bound_by']}{'' if r['ok'] else '  FAIL'}")
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -268,7 +505,6 @@ def main() -> int:
 
     # 4. Serve smollm-135m at full width through the kernels. A short warm-up
     # run first takes cuBLAS' and the allocator's one-time costs.
-    cfg = get_config(ARCH)
     server = BatchedServer(cfg, max_seq=PROMPT + NEW_TOKENS + 8, batch_size=BATCH)
     prompts = np.random.RandomState(0).randint(0, cfg.vocab, (BATCH, PROMPT)).astype(np.int32)
     t0 = time.perf_counter()
@@ -286,7 +522,8 @@ def main() -> int:
           f"{tm['decode_s'] / tm['decode_steps'] * 1e3:.3f} ms/token, "
           f"{BATCH * out.shape[1] / wall:.1f} tokens/s ({wall:.3f} s wall); launches {launches}")
     want = {"flash_attention": cfg.n_layers,
-            "rmsnorm": (2 * cfg.n_layers + 1) * (1 + NEW_TOKENS)}
+            "rmsnorm": (2 * cfg.n_layers + 1) * (1 + NEW_TOKENS),
+            "bucket_pack": 0, "bucket_unpack": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches} on the serve run, expected {want}")
     if out.shape != (BATCH, NEW_TOKENS) or out.min() < 0 or out.max() >= cfg.vocab:
@@ -339,19 +576,43 @@ def main() -> int:
           f"{tm['prefill_s'] * 1e3:.3f} ms), decode step {decode_dev:.4f} ms (host clock "
           f"{decode_host:.3f} ms): device idle share of decode {1 - decode_dev / decode_host:.4f}")
 
-    # 5. Results.
-    headline = {"flash_attention": ([BATCH * 9, PROMPT, 64], "bfloat16", True),
-                "rmsnorm": ([BATCH * PROMPT, 576], "bfloat16", None)}
+    del server, cache, tokens, step, lg_kernel, lg_plain, lg_fp32
+    torch.cuda.empty_cache()
+
+    # 5. Train smollm-135m at full width through the kernels.
+    train = train_phase()
+    train_launches = {n: train["fp32"]["launches"][n] + train["int8"]["launches"][n]
+                      for n in train["fp32"]["launches"]}
+
+    # 6. Results: one entry per kernel and path, each with the phase-3 row at
+    # the shape that path gives the kernel and the launches of that path's run.
+    # K1 and K2 serving (prefill shapes) and training (both wires' runs); K3
+    # and K4 on the training path's bf16 leaves, once for each wire's run.
+    headline = (
+        ("serve", "flash_attention", [BATCH * 9, PROMPT, 64], "bfloat16", True, launches),
+        ("serve", "rmsnorm", [BATCH * PROMPT, 576], "bfloat16", None, launches),
+        ("train", "flash_attention", [BATCH * 9, TRAIN_SEQ, 64], "bfloat16", True,
+         train_launches),
+        ("train", "rmsnorm", [TRAIN_BATCH * TRAIN_SEQ, 576], "bfloat16", None, train_launches),
+        ("train, fp32 wire", "bucket_pack", None, "bfloat16->fp32", "smollm-135m",
+         train["fp32"]["launches"]),
+        ("train, fp32 wire", "bucket_unpack", None, "bfloat16->fp32", "smollm-135m",
+         train["fp32"]["launches"]),
+        ("train, int8 wire", "bucket_pack", None, "bfloat16->int8", "smollm-135m",
+         train["int8"]["launches"]),
+        ("train, int8 wire", "bucket_unpack", None, "bfloat16->int8", "smollm-135m",
+         train["int8"]["launches"]))
     kernels = []
-    for name, (shape, dt, causal) in headline.items():
-        r = next(r for r in rows if r["name"] == name and r["shape"] == shape
-                 and r["dtype"] == dt and r.get("causal") == causal)
+    for path, name, shape, dt, tag, counts in headline:
+        r = next(r for r in rows if r["name"] == name and shape in (None, r["shape"])
+                 and r["dtype"] == dt and r.get("causal", r.get("table")) == tag)
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches[name],
+                        "replaces": REPLACES[name], "launches": counts[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                        "call_ms": r["call_ms"], "shape": shape, "dtype": dt})
+                        "call_ms": r["call_ms"], "shape": r["shape"], "dtype": dt,
+                        "path": path})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -13,9 +13,11 @@ namespace repro_torch {
 // Dtype codes shared with the Python wrappers (kernels/_build.py DTYPE_CODES).
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kInt8 = 2;  // the bucket codec's int8 wire only
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(signed char v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

@@ -23,7 +23,9 @@
 // then the P.V update. Causal blocks stop at the last kv tile that touches the
 // diagonal, and a thread skips the chunks wholly above its own row. Keys past
 // S are masked to -1e30 and rows past S are not stored, so any S works.
-// out = acc / max(l, 1e-30), as on the TPU.
+// out = acc / max(l, 1e-30), as on the TPU. The head width is a template
+// argument, instantiated for 64 (smollm-135m and the other configs) and 32
+// (the reduced configs of the CPU tests and the launcher's --reduced).
 #include "common.cuh"
 
 namespace {
@@ -31,13 +33,12 @@ namespace {
 using repro_torch::from_float;
 using repro_torch::to_float;
 
-constexpr int kHeadDim = 64;
 constexpr int kBlockQ = 64;   // query rows per block = threads per block
 constexpr int kBlockK = 64;   // keys per shared-memory tile
 constexpr int kChunk = 16;    // keys per online-softmax update
 constexpr float kNegInf = -1e30f;
 
-template <typename T>
+template <typename T, int kHeadDim>
 __global__ void __launch_bounds__(kBlockQ)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, int seq, int causal, float scale) {
@@ -140,28 +141,36 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int seq,
-                   int causal, float scale, cudaStream_t stream) {
+                   int head_dim, int causal, float scale, cudaStream_t stream) {
     const dim3 grid(bh, (seq + kBlockQ - 1) / kBlockQ);
-    flash_fwd_kernel<T><<<grid, kBlockQ, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), seq, causal, scale);
+    const T* qt = static_cast<const T*>(q);
+    const T* kt = static_cast<const T*>(k);
+    const T* vt = static_cast<const T*>(v);
+    T* ot = static_cast<T*>(o);
+    if (head_dim == 64)
+        flash_fwd_kernel<T, 64><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, seq, causal, scale);
+    else
+        flash_fwd_kernel<T, 32><<<grid, kBlockQ, 0, stream>>>(qt, kt, vt, ot, seq, causal, scale);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: (bh, seq, head_dim) contiguous, all of one dtype; head_dim 64.
+// q, k, v, o: (bh, seq, head_dim) contiguous, all of one dtype; head_dim 32 or 64.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int bh,
                                    int seq, int head_dim, int causal, float scale, int dtype,
                                    void* stream) {
-    if (head_dim != kHeadDim || bh <= 0 || seq <= 0 || (seq + kBlockQ - 1) / kBlockQ > 65535)
+    if ((head_dim != 32 && head_dim != 64) || bh <= 0 || seq <= 0 ||
+        (seq + kBlockQ - 1) / kBlockQ > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
         case repro_torch::kFloat32:
-            return static_cast<int>(launch<float>(q, k, v, o, bh, seq, causal, scale, s));
+            return static_cast<int>(
+                launch<float>(q, k, v, o, bh, seq, head_dim, causal, scale, s));
         case repro_torch::kBFloat16:
-            return static_cast<int>(launch<__nv_bfloat16>(q, k, v, o, bh, seq, causal, scale, s));
+            return static_cast<int>(launch<__nv_bfloat16>(q, k, v, o, bh, seq, head_dim,
+                                                                   causal, scale, s));
         default:
             return static_cast<int>(cudaErrorInvalidValue);
     }

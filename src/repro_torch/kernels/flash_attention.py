@@ -16,7 +16,7 @@ import torch
 
 from . import _build
 
-HEAD_DIM = 64  # the head width csrc/flash_attention.cu is compiled for
+HEAD_DIMS = (32, 64)  # the head widths csrc/flash_attention.cu is compiled for
 MAX_SEQ = 65535 * 64  # the kernel's grid holds at most 65535 query tiles of 64
 
 # Launches of the kernel since the last reset (ops.reset_launch_counts).
@@ -35,7 +35,7 @@ def _entry():
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
     """q, k, v: (BH, S, hd), batch and heads merged, kv repeated to H; contiguous
-    CUDA tensors of one dtype (float32 or bfloat16), hd = 64. Returns (BH, S, hd)."""
+    CUDA tensors of one dtype (float32 or bfloat16), hd in HEAD_DIMS. Returns (BH, S, hd)."""
     global launches
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash attention kernel needs q, k, v on one CUDA device, "
@@ -47,8 +47,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash attention kernel needs q, k, v of one shape (BH, S, hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     bh, s, hd = q.shape
-    if hd != HEAD_DIM:
-        raise ValueError(f"flash attention kernel is built for head_dim {HEAD_DIM}, got {hd}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel is built for head_dim in {HEAD_DIMS}, "
+                         f"got {hd}")
     if s > MAX_SEQ or bh >= 2 ** 31:
         raise ValueError(f"flash attention kernel takes S <= {MAX_SEQ} and BH < 2**31, "
                          f"got S={s}, BH={bh}")

@@ -26,3 +26,55 @@ def rmsnorm_ref(x, scale, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------- bucket codec
+# Line for line the JAX package's `_quantize_rows`, `_pack_xla` and
+# `_unpack_xla` (src/repro/kernels/bucket_codec.py). Each op rounds on its own,
+# as the eager XLA ops do.
+def quantize_rows_ref(carrier: torch.Tensor):
+    """Symmetric per-bucket int8 quantization of a (n_buckets, cap) fp32
+    carrier -> (q int8, scales fp32 (n_buckets,), new_err fp32)."""
+    m = torch.clamp_min(torch.amax(torch.abs(carrier), dim=1), 1e-12)
+    # a tensor divisor: PyTorch's CUDA ops multiply by the reciprocal of a
+    # Python-scalar divisor, which is not the JAX package's division
+    s = m / torch.full_like(m, 127.0)
+    q = torch.clamp(torch.round(carrier / s[:, None]), -127, 127).to(torch.int8)
+    new_err = carrier - q.float() * s[:, None]
+    return q, s, new_err
+
+
+def pack_ref(table, flat_g, scale: float = 1.0, wire: str = "fp32", err=None):
+    """Leaves -> (carrier, scales, new_err): `bucket_codec.pack`'s contract."""
+    from .bucket_codec import WIRE_DTYPES
+
+    dev = next((g.device for g in flat_g), torch.device("cpu"))
+    flat = torch.zeros((table.carrier_elems,), dtype=torch.float32, device=dev)
+    for i, size in enumerate(table.sizes):
+        if size == 0:
+            continue
+        off = table.leaf_offsets[i]
+        flat[off:off + size] = flat_g[i].reshape(-1).float()
+    carrier = (flat * scale).reshape(table.n_buckets, table.bucket_elems)
+    if wire == "int8":
+        if err is not None:
+            carrier = carrier + err
+        return quantize_rows_ref(carrier)
+    return carrier.to(WIRE_DTYPES[wire]), None, err
+
+
+def unpack_ref(table, carrier: torch.Tensor, like, scales=None):
+    """Reduced carrier -> per-leaf fp32 tensors shaped like `like` (fresh
+    tensors, never views of the carrier)."""
+    flat = carrier.float()
+    if scales is not None:
+        flat = flat * scales[:, None]
+    flat = flat.reshape(-1)
+    out = []
+    for i, g in enumerate(like):
+        if table.sizes[i] == 0:
+            out.append(torch.zeros(g.shape, dtype=torch.float32, device=carrier.device))
+            continue
+        off = table.leaf_offsets[i]
+        out.append(flat[off:off + table.sizes[i]].reshape(g.shape).clone())
+    return out

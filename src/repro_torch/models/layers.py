@@ -1,5 +1,5 @@
-"""Shared neural building blocks: RMSNorm, RoPE, GQA attention (prefill through
-the flash kernel, decode against the KV cache), MLPs.
+"""Shared neural building blocks: RMSNorm, RoPE, GQA attention (prefill and
+training through the flash kernel, decode against the KV cache), MLPs.
 
 The counterpart of `repro.models.layers` for one card: no `Sharder`. The norm
 and the prefill attention go through the kernel wrappers in `kernels.ops`;
@@ -44,12 +44,13 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
     return k[:, :, :, None, :].expand(b, s, kh, n_rep, hd).reshape(b, s, kh * n_rep, hd)
 
 
-def attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Prefill attention through the flash kernel. q: (B, S, H, hd);
-    k, v: (B, S, K, hd) with K | H."""
+def attention(q, k, v, *, causal: bool = True, q_block: int = 256) -> torch.Tensor:
+    """Prefill and training attention through the flash kernel. q: (B, S, H, hd);
+    k, v: (B, S, K, hd) with K | H. `q_block` is the backward's query block
+    (`cfg.q_block`, as the JAX package's blockwise attention)."""
     h, kh = q.shape[2], k.shape[2]
     return ops.flash_attention(q, _repeat_kv(k, h // kh), _repeat_kv(v, h // kh),
-                               causal=causal)
+                               causal=causal, q_block=q_block)
 
 
 def decode_attention(q, k_cache, v_cache, pos: int) -> torch.Tensor:

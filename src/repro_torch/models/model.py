@@ -2,17 +2,20 @@
 branch of `repro.models.model.Model`.
 
   model = Model(cfg, device="cuda").init(torch.Generator("cuda").manual_seed(0))
+  loss = model.loss({"tokens": tokens})              # train objective
   cache = model.init_cache(shape, batch_size)
   logits, cache = model.prefill(tokens, cache)       # last position only
   logits, cache = model.decode(cache, tokens, pos)
 
 The model owns its params (an `nn.Module` tree named as the JAX package's
-param tree); `load_params` fills them from such a tree, for example one made
-by `convert.params_from_numpy`.
+param tree, with `requires_grad` set for training; serving runs under
+`no_grad`); `load_params` fills them from such a tree, for example one made
+by `convert.params_from_numpy`. `flat_leaves` lists a tree's leaves in the
+order `jax.tree.flatten` gives the JAX package's tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -22,6 +25,31 @@ from . import transformer as T
 
 PARAM_DTYPE = T.PARAM_DTYPE
 NORM_PARAMS = ("ln1", "ln2", "ln_f")
+
+
+def flat_leaves(tree: Dict[str, Any]) -> List[Any]:
+    """The leaves of a nested dict in `jax.tree.flatten` order: sorted keys at
+    every level (for smollm: emb, layers.ln1, ln2, mlp.w1, w2, w3, wk, wo, wq,
+    wv, ln_f). The codec table, the bucket boundaries and the int8 error state
+    all follow this order; `ParamTree`'s own order is insertion order."""
+    out: List[Any] = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(flat_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def unflatten_like(tree: Dict[str, Any], leaves: List[Any]) -> Dict[str, Any]:
+    """The inverse of `flat_leaves`: `leaves` nested as `tree`."""
+    it = iter(leaves)
+
+    def build(d):
+        return {k: build(d[k]) if isinstance(d[k], dict) else next(it) for k in sorted(d)}
+
+    out = build(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def resolve_device(device) -> torch.device:
@@ -38,7 +66,8 @@ def resolve_device(device) -> torch.device:
 class ParamTree(nn.Module):
     """Parameters nested as the JAX package's param tree: `layers.mlp.w1` is
     its `layers/mlp/w1`. `as_dict()` gives the nested dict the model's
-    functions read."""
+    functions read. Every parameter requires grad; serving runs under
+    `no_grad`."""
 
     def __init__(self, shapes: Dict[str, Any], device, dtype):
         super().__init__()
@@ -47,7 +76,7 @@ class ParamTree(nn.Module):
                 self.add_module(name, ParamTree(v, device, dtype))
             else:
                 self.register_parameter(name, nn.Parameter(
-                    torch.empty(v, device=device, dtype=dtype), requires_grad=False))
+                    torch.empty(v, device=device, dtype=dtype)))
 
     def as_dict(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {n: p for n, p in self.named_parameters(recurse=False)}
@@ -104,6 +133,27 @@ class Model(nn.Module):
                                  f"{tuple(p.shape)}")
             p.copy_(flat[name])
         return self
+
+    # -------------------------------------------------------------- loss
+    def _logits_and_targets(self, batch, params):
+        params = self.params.as_dict() if params is None else params
+        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        x = T.embed_tokens(params, tokens)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        xh = T.forward(params, x, self.cfg, positions)
+        return T.unembed(params, xh[:, :-1], self.cfg), tokens[:, 1:]
+
+    def loss(self, batch: Dict[str, Any], params: Optional[Dict[str, Any]] = None):
+        """Mean next-token cross-entropy of `batch["tokens"]` (B, S): the dense
+        branch of the JAX package's `Model.loss`, the logits of positions
+        [0, S-1) against the tokens at [1, S). `params` defaults to the
+        model's own tree."""
+        return T.cross_entropy(*self._logits_and_targets(batch, params))
+
+    def token_nll(self, batch: Dict[str, Any], params: Optional[Dict[str, Any]] = None):
+        """The loss before its mean: (B, S-1) fp32 per-token NLL."""
+        return T.token_nll(*self._logits_and_targets(batch, params))
 
     # ------------------------------------------------------------ serving
     def abstract_cache(self, shape: ShapeConfig, batch_size: Optional[int] = None):

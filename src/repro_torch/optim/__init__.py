@@ -1,0 +1,1 @@
+from .adamw import OptConfig, apply_updates, global_norm, init_opt_state, schedule

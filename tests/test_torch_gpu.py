@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card,
+and one explicit-DP training step through all of them.
 
 Every test here is marked `gpu` and skips without a card. This file imports
 neither jax nor the JAX package, so it runs where only the port is installed:
@@ -8,7 +9,7 @@ neither jax nor the JAX package, so it runs where only the port is installed:
 import pytest
 import torch
 
-from repro_torch.kernels import flash_attention as fa, ops, ref, rmsnorm as rn
+from repro_torch.kernels import bucket_codec as bc, flash_attention as fa, ops, ref, rmsnorm as rn
 
 
 @pytest.fixture
@@ -23,9 +24,10 @@ def cuda():
 @pytest.mark.parametrize("s", [128, 100, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_plain_on_card(cuda, s, causal, dtype):
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_flash_kernel_matches_plain_on_card(cuda, s, causal, dtype, hd):
     g = torch.Generator(device=cuda).manual_seed(s)
-    q, k, v = (torch.randn(72, s, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
+    q, k, v = (torch.randn(72, s, hd, generator=g, device=cuda).to(dtype) for _ in range(3))
     got = fa.flash_attention_fwd(q, k, v, causal=causal)
     want = ref.attention_ref(q, k, v, causal=causal)
     tol = 1e-5 if dtype == torch.float32 else 3e-2
@@ -54,4 +56,109 @@ def test_wrappers_launch_and_count_on_card(cuda):
     assert out.shape == x.shape and out.dtype == x.dtype
     sc = torch.ones(64, device=cuda, dtype=torch.bfloat16)
     assert ops.rmsnorm(x, sc).shape == x.shape
-    assert ops.launch_counts() == {"rmsnorm": 1, "flash_attention": 1}
+    assert ops.launch_counts() == {"rmsnorm": 1, "flash_attention": 1, "bucket_pack": 0,
+                                   "bucket_unpack": 0}
+
+
+# ------------------------------------------------------------ bucket codec
+def _codec_leaves(shapes, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype) for s in shapes]
+
+
+CODEC_CASES = [
+    # ragged small table with zero-size leaves at both ends and in the middle
+    ([(0, 3), (7, 5), (0,), (1000,), (13,), (0,)], 64),
+    # one leaf spanning many buckets, a ragged tail
+    ([(300, 577), (576,)], 1 << 14),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,cap", CODEC_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("wire", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_codec_kernels_match_plain_on_card(cuda, shapes, cap, dtype, wire, reverse):
+    """K3 and K4 bit for bit against `ref.pack_ref` / `ref.unpack_ref` on the
+    same CUDA tensors: the kernels round each product and sum on their own and
+    divide as the plain versions do."""
+    leaves = _codec_leaves(shapes, dtype, cuda, cap)
+    table = bc.make_table([t.numel() for t in leaves], cap, reverse)
+    err = torch.randn(table.n_buckets, table.bucket_elems, device=cuda) * 1e-2 \
+        if wire == "int8" else None
+    got = bc.bucket_pack(table, leaves, 1.0 / 3, wire, err)
+    want = ref.pack_ref(table, leaves, 1.0 / 3, wire, err)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b)
+    back = bc.bucket_unpack(table, got[0], leaves, got[1])
+    for a, b in zip(back, ref.unpack_ref(table, want[0], leaves, want[1])):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_codec_wrappers_launch_and_count_on_card(cuda):
+    ops.reset_launch_counts()
+    leaves = _codec_leaves([(10,), (0,), (3, 4)], torch.bfloat16, cuda, 0)
+    table = bc.make_table([t.numel() for t in leaves], 8)
+    err = torch.zeros(table.n_buckets, table.bucket_elems, device=cuda)
+    q, s, e = bc.pack(table, leaves, wire="int8", err=err)        # two passes, one call
+    c, _, _ = bc.pack(table, leaves)
+    back = bc.unpack(table, c, leaves)
+    assert [tuple(t.shape) for t in back] == [(10,), (0,), (3, 4)]
+    assert torch.equal(back[2], leaves[2].float())
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 2,
+                                   "bucket_unpack": 1}
+
+
+# ------------------------------------------------------------------ training
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress_bits", [0, 8])
+def test_one_explicit_dp_step_on_nccl(cuda, compress_bits):
+    """One explicit-DP step at world size 1 on NCCL through every kernel: a
+    reduced smollm with head dim 64 (the flash kernel's), bf16 params."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.runtime.train import Trainer, TrainConfig
+
+    cfg = dataclasses.replace(get_config("smollm-135m").reduced(), n_heads=2, n_kv_heads=1)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        tr = Trainer(cfg, SHAPES["train_4k"].reduced(),
+                     train_cfg=TrainConfig(steps=1, explicit_dp=True, bucket_bytes=1 << 16,
+                                           compress_bits=compress_bits))
+        ops.reset_launch_counts()
+        res = tr.run()
+    finally:
+        dist.destroy_process_group()
+    L = cfg.n_layers
+    assert ops.launch_counts() == {"rmsnorm": 4 * L + 1, "flash_attention": 2 * L,
+                                   "bucket_pack": 1, "bucket_unpack": 1}
+    row = res["metrics"][0]
+    assert torch.isfinite(torch.tensor([row["loss"], row["grad_norm"]])).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress_bits", ["0", "8"])
+def test_launch_train_reduced_on_the_card(cuda, capsys, compress_bits):
+    """The launcher's default device at the reduced preset (head dim 32):
+    one rank on NCCL, every step through the kernels."""
+    from repro_torch.launch import train as launch_train
+
+    ops.reset_launch_counts()
+    assert launch_train.main(["--arch", "smollm-135m", "--reduced", "--explicit-dp",
+                              "--steps", "2", "--bucket-bytes", "65536",
+                              "--compress-bits", compress_bits]) == 0
+    out = capsys.readouterr().out
+    assert "step     0 loss" in out and "done: step 2" in out and "on cuda" in out
+    counts = ops.launch_counts()
+    assert counts["bucket_pack"] == 2 and counts["bucket_unpack"] == 2
+    assert counts["flash_attention"] == 2 * 2 * 2       # 2 layers, forward + recompute, 2 steps

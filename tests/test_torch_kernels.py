@@ -69,7 +69,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                .reshape(4, 2, 6, 64).transpose(1, 2), rtol=0, atol=0)
     sc = torch.ones(64)
     torch.testing.assert_close(ops.rmsnorm(x, sc), ref.rmsnorm_ref(x, sc), rtol=0, atol=0)
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 0,
+                                   "bucket_unpack": 0}
 
 
 def test_cuda_tensors_reach_the_kernel_or_raise(monkeypatch):
@@ -96,7 +97,8 @@ def test_cuda_tensors_reach_the_kernel_or_raise(monkeypatch):
         with pytest.raises(RuntimeError, match="cannot build flash_attention"):
             ops.flash_attention(x, x, x)
     assert asked == ["rmsnorm", "flash_attention"]
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 0,
+                                   "bucket_unpack": 0}
 
 
 def test_cuda_tensors_raise_without_a_card():
@@ -125,7 +127,7 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
         rn.rmsnorm_fwd(x, s16)
     with pytest.raises(ValueError, match=r"\(D,\)"):
         rn.rmsnorm_fwd(x, s32)
-    with pytest.raises(ValueError, match="head_dim 64"):
+    with pytest.raises(ValueError, match=r"head_dim in \(32, 64\)"):
         fa.flash_attention_fwd(q128, q128, q128)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_fwd(strided, strided, strided)

@@ -243,6 +243,10 @@ def test_port_and_chip_smoke_import_neither_jax_nor_repro():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "mods = ('repro_torch.core.overlap', 'repro_torch.kernels.bucket_codec',\n"
+        "        'repro_torch.optim.adamw', 'repro_torch.runtime.train',\n"
+        "        'repro_torch.launch.train', 'repro_torch.data.pipeline')\n"
+        "assert all(m in sys.modules for m in mods), [m for m in mods if m not in sys.modules]\n"
         "print('imported:', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
