@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNELS = ("rmsnorm", "flash_attention", "bucket_pack", "bucket_unpack")
+KERNELS = ("rmsnorm", "flash_attention", "bucket_pack", "bucket_unpack", "adamw_shard")
 # Dtype codes shared with csrc/common.cuh.
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

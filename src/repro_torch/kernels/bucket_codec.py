@@ -1,5 +1,5 @@
 """Bucket wire codec: the counterpart of `repro.kernels.bucket_codec`'s table,
-`pack` and `unpack`.
+`pack`, `unpack` and `adamw_update_shard`.
 
 The explicit-DP step packs every gradient leaf into one stacked
 `(n_buckets, bucket_elems)` carrier in the wire dtype (fp32, bf16, or int8
@@ -11,9 +11,11 @@ so both packages cut the gradient stream at the same places.
 Dispatch is by the tensors' device and by nothing else, as in `ops`: CPU
 tensors take the plain versions (`ref.pack_ref`, `ref.unpack_ref`); CUDA
 tensors take the hand-written kernels csrc/bucket_pack.cu (K3, replacing the
-Pallas `_pack_kernel`) and csrc/bucket_unpack.cu (K4, replacing
-`_unpack_kernel`), or raise. Each public call that launches counts one launch
-(the int8 pack's two passes are one call).
+Pallas `_pack_kernel`), csrc/bucket_unpack.cu (K4, replacing
+`_unpack_kernel`) and csrc/adamw_shard.cu (K5, replacing
+`_adamw_shard_kernel`: the ZeRO step's fused update of one carrier shard), or
+raise. Each public call that launches counts one launch (the int8 pack's and
+the int8 update's two passes are one call).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ MAX_LEAVES = 128  # csrc/codec.cuh kMaxLeaves: the table travels in kernel param
 # Launches of each kernel since the last reset (ops.reset_launch_counts).
 pack_launches = 0
 unpack_launches = 0
+adamw_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,6 +215,56 @@ def bucket_unpack(table: CodecTable, carrier: torch.Tensor, like: Sequence[torch
     return out
 
 
+def _adamw_entry():
+    lib = _build.library("adamw_shard")
+    fn = lib.adamw_shard
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.adamw_shard_chunks.argtypes = [ctypes.c_longlong]
+    lib.adamw_shard_chunks.restype = ctypes.c_longlong
+    return lib, fn
+
+
+def adamw_shard(g, p, m, v, clip, lr, bc1, bc2, b1: float, b2: float, eps: float, wd: float,
+                wire: str):
+    """K5 on the card: `adamw_update_shard` for CUDA shards (see there)."""
+    global adamw_launches
+    dev = g.device
+    for name, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+        if (t.device != dev or t.dtype != torch.float32 or t.dim() != 2
+                or t.shape != g.shape or not t.is_contiguous()):
+            raise ValueError(f"the AdamW shard kernel takes contiguous float32 (n_buckets, "
+                             f"shard_elems) g, p, m and v of one shape on one device; {name} is "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    nb, sh = g.shape
+    if nb == 0 or sh == 0:
+        raise ValueError(f"the AdamW shard kernel needs a non-empty shard, got {(nb, sh)}")
+    lib, fn = _adamw_entry()  # builds at first use; raises if it cannot
+    # [clip, lr, bc1, bc2] as one fp32 buffer on the device, made on the stream
+    # (no host read of a device scalar, so the call can be captured in a graph)
+    scalars = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev).reshape(())
+                           for x in (clip, lr, bc1, bc2)])
+    out = torch.empty((nb, sh), dtype=WIRE_DTYPES[wire], device=dev)
+    m_out, v_out = torch.empty_like(m), torch.empty_like(v)
+    scratch = partial = scales = None
+    if wire == "int8":
+        scratch = torch.empty((nb, sh), dtype=torch.float32, device=dev)
+        partial = torch.empty((nb, lib.adamw_shard_chunks(sh)), dtype=torch.float32, device=dev)
+        scales = torch.empty((nb,), dtype=torch.float32, device=dev)
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    with torch.cuda.device(dev):
+        # 1 - b1 and 1 - b2 in double, rounded once to fp32 by ctypes: JAX's
+        # weak-typed Python floats
+        code = fn(g.data_ptr(), p.data_ptr(), m.data_ptr(), v.data_ptr(), scalars.data_ptr(),
+                  WIRE_CODES[wire], out.data_ptr(), m_out.data_ptr(), v_out.data_ptr(),
+                  ptr(scratch), ptr(partial), ptr(scales), nb, sh, b1, 1 - b1, b2, 1 - b2, eps,
+                  wd, _build.stream_of(g))
+    _build.check(lib, code, "adamw_shard")
+    adamw_launches += 1
+    return out, scales, m_out, v_out
+
+
 # ------------------------------------------------------------------- public
 def _device(tensors: Sequence[torch.Tensor]) -> torch.device:
     devs = {t.device for t in tensors}
@@ -257,3 +310,30 @@ def unpack(table: CodecTable, carrier, like: Sequence[torch.Tensor],
     if dev.type == "cpu":
         return ref.unpack_ref(table, carrier, like, scales)
     return bucket_unpack(table, carrier, like, scales)
+
+
+def adamw_update_shard(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor, *,
+                       clip, lr, bc1, bc2, b1: float, b2: float, eps: float,
+                       weight_decay: float, wire: str = "fp32"):
+    """Fused sharded AdamW: one device's `(n_buckets, shard_elems)` carrier
+    shards of (reduced gradient, param, m, v), all fp32 -> (p_wire, p_scales,
+    new_m, new_v): the ZeRO update between the reduce-scatter and the
+    all-gather.
+
+    Elementwise math is `optim.adamw.apply_updates`' in the same op order:
+    `clip` is the global-norm clip factor (already combined across shards),
+    `lr` the scheduled rate, `bc1`/`bc2` the bias corrections (fp32 tensors,
+    read on the device); `b1`/`b2`/`eps`/`weight_decay` are constants.
+    Zero-padded carrier columns stay zero through any number of steps.
+
+    `wire` is the all-gather leg's format: fp32/bf16 cast `p_new` (scales is
+    None); int8 requantizes per row with a symmetric scale, one fp32 scale per
+    (bucket, device) shard. The moments stay fp32. New tensors are returned;
+    nothing given is modified.
+    """
+    if wire not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire format {wire!r}; one of {sorted(WIRE_DTYPES)}")
+    if _device([g, p, m, v]).type == "cpu":
+        return ref.adamw_shard_ref(g, p, m, v, clip, lr, bc1, bc2, b1, b2, eps, weight_decay,
+                                   wire)
+    return adamw_shard(g, p, m, v, clip, lr, bc1, bc2, b1, b2, eps, weight_decay, wire)

@@ -87,21 +87,6 @@ pack_cast_kernel(LeafTable table, TOut* __restrict__ out, long long cap, float s
     }
 }
 
-__device__ __forceinline__ float block_max(float m) {
-    __shared__ float warp_max[kThreads / 32];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-    __syncthreads();
-    m = 0.f;
-    if (threadIdx.x < 32) {
-        m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0.f;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    }
-    return m;  // valid in thread 0
-}
-
 // int8 pass 1: r = leaf * scale (+ err) into r_out; one max|r| per block.
 template <typename TIn>
 __global__ void __launch_bounds__(kThreads)
@@ -126,7 +111,7 @@ pack_int8_pass1(LeafTable table, const float* __restrict__ err, float* __restric
         r_out[e] = r;
         m = fmaxf(m, fabsf(r));
     }
-    m = block_max(m);
+    m = repro_torch::block_max<kThreads>(m);
     if (threadIdx.x == 0) partial[row * gridDim.y + blockIdx.y] = m;
 }
 
@@ -139,7 +124,7 @@ pack_int8_pass2(const float* __restrict__ partial, float* __restrict__ r_err,
     const int chunks = gridDim.y;
     float m = 0.f;
     for (int i = threadIdx.x; i < chunks; i += kThreads) m = fmaxf(m, partial[row * chunks + i]);
-    m = block_max(m);
+    m = repro_torch::block_max<kThreads>(m);
     if (threadIdx.x == 0) {
         s_row = __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
         if (blockIdx.y == 0) scales[row] = s_row;

@@ -31,6 +31,24 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
     return __float2bfloat16_rn(v);
 }
 
+// max over the block of each thread's m (m >= 0), valid in thread 0. Call it
+// once per kernel: it uses a static shared array.
+template <int kThreads>
+__device__ __forceinline__ float block_max(float m) {
+    __shared__ float warp_max[kThreads / 32];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+    __syncthreads();
+    m = 0.f;
+    if (threadIdx.x < 32) {
+        m = threadIdx.x < kThreads / 32 ? warp_max[threadIdx.x] : 0.f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    }
+    return m;
+}
+
 }  // namespace repro_torch
 
 extern "C" const char* kernel_error_string(int code) {

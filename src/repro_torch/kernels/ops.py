@@ -10,7 +10,8 @@ the wrapper raises if it cannot build or launch it.
 plain version) and whose backward is written out in PyTorch ops. The JAX
 package has no backward kernel for either; its gradients are autodiff of XLA
 ops (`layers.rms_norm`, `layers.blockwise_attention`). The bucket codec's
-kernels (K3, K4) are in `bucket_codec`; their launches are counted here too.
+kernels (K3, K4) and the sharded AdamW update (K5) are in `bucket_codec`;
+their launches are counted here too.
 """
 from __future__ import annotations
 
@@ -132,7 +133,8 @@ def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last reset, by kernel."""
     return {"rmsnorm": _rn.launches, "flash_attention": _fa.launches,
-            "bucket_pack": _codec.pack_launches, "bucket_unpack": _codec.unpack_launches}
+            "bucket_pack": _codec.pack_launches, "bucket_unpack": _codec.unpack_launches,
+            "adamw_shard": _codec.adamw_launches}
 
 
 def reset_launch_counts() -> None:
@@ -140,3 +142,4 @@ def reset_launch_counts() -> None:
     _fa.launches = 0
     _codec.pack_launches = 0
     _codec.unpack_launches = 0
+    _codec.adamw_launches = 0

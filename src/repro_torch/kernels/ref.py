@@ -78,3 +78,32 @@ def unpack_ref(table, carrier: torch.Tensor, like, scales=None):
         off = table.leaf_offsets[i]
         out.append(flat[off:off + table.sizes[i]].reshape(g.shape).clone())
     return out
+
+
+# ----------------------------------------------------- sharded AdamW update
+def adamw_shard_ref(g, p, m, v, clip, lr, bc1, bc2, b1: float, b2: float, eps: float,
+                    wd: float, wire: str = "fp32"):
+    """One device's (n_buckets, shard_elems) carrier shards -> (p_wire,
+    scales, new_m, new_v): line for line the JAX package's `_adamw_shard_xla`,
+    each op rounded on its own as the eager XLA ops are. `clip`, `lr`, `bc1`
+    and `bc2` are fp32 tensors; `b1`, `b2`, `eps` and `wd` Python floats,
+    rounded to fp32 where they meet a tensor, as JAX's weak types are (so
+    `1 - b1` is taken in double and rounded once). The divisors are tensors:
+    PyTorch's CUDA ops multiply by the reciprocal of a Python-scalar divisor."""
+    from .bucket_codec import WIRE_DTYPES
+
+    clip, lr, bc1, bc2 = (torch.as_tensor(x, dtype=torch.float32, device=g.device)
+                          for x in (clip, lr, bc1, bc2))
+    g = g * clip
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    mhat = m / bc1
+    vhat = v / bc2
+    delta = mhat / (torch.sqrt(vhat) + eps) + wd * p
+    p_new = p - lr * delta
+    if wire == "int8":
+        mx = torch.clamp_min(torch.amax(torch.abs(p_new), dim=1), 1e-12)
+        s = mx / torch.full_like(mx, 127.0)
+        q = torch.clamp(torch.round(p_new / s[:, None]), -127, 127).to(torch.int8)
+        return q, s, m, v
+    return p_new.to(WIRE_DTYPES[wire]), None, m, v

@@ -3,19 +3,23 @@ decoder.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \
       [--shape train_4k] [--reduced] --steps 100 [--lr 3e-4] [--warmup 50] \
-      [--explicit-dp] [--bucket-bytes N] [--compress-bits {0,8}] [--device cuda]
+      [--microbatches M] [--explicit-dp] [--bucket-bytes N] [--compress-bits {0,8}] \
+      [--overlap] [--zero] [--ckpt-dir D] [--ckpt-every K] [--resume] [--device cuda]
 
   torchrun --nproc_per_node N -m repro_torch.launch.train ... --explicit-dp
 
 Under `torchrun` it joins the process group from the environment (NCCL on
 the card, gloo with `--device cpu`). Alone it makes a one-rank group in
-memory. A `cuda` run without a card raises.
+memory. A `cuda` run without a card raises. `--overlap` and `--zero` imply
+`--explicit-dp`. The `done:` line gives the median host time of the steps
+after the first (the first pays the library's and the allocator's set-up).
 """
 from __future__ import annotations
 
 import argparse
 import datetime
 import os
+import statistics
 import sys
 
 import torch
@@ -45,8 +49,13 @@ def main(argv=None):
     ap.add_argument("--shape", default="train_4k", choices=list(SHAPES))
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--warmup", type=int, default=50)
+    ap.add_argument("--ckpt-dir", default="artifacts/train_ckpt")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="start from the latest checkpoint in --ckpt-dir, if there is one")
     ap.add_argument("--explicit-dp", action="store_true",
                     help="data-parallel step over the process group with the bucket "
                          "codec's gradient wire")
@@ -54,7 +63,16 @@ def main(argv=None):
                     help="gradient bucket size for --explicit-dp (default 4 MiB; "
                          "0 = per-tensor)")
     ap.add_argument("--compress-bits", type=int, default=0, choices=[0, 8],
-                    help="8 = int8 error-feedback wire for --explicit-dp, 0 = fp32 wire")
+                    help="8 = int8 error-feedback wire for --explicit-dp, 0 = fp32 wire; "
+                         "with --zero, the int8 all-gather leg")
+    ap.add_argument("--overlap", action="store_true",
+                    help="overlap schedule (implies --explicit-dp): reverse-layer-order "
+                         "buckets issued one after another; with --microbatches each "
+                         "microbatch's reductions overlap the next backward")
+    ap.add_argument("--zero", action="store_true",
+                    help="ZeRO sharded optimizer (implies --explicit-dp): reduce-scatter the "
+                         "packed gradient carrier, fused AdamW over each rank's shard (fp32 "
+                         "m/v sharded), all-gather the updated params at the wire dtype")
     ap.add_argument("--device", default="cuda",
                     help='"cuda" (the default) runs the kernels; "cpu" the plain versions')
     args = ap.parse_args(argv)
@@ -71,22 +89,29 @@ def main(argv=None):
     if shape.kind != "train":
         raise SystemExit(f"--shape {args.shape} is a {shape.kind} shape; use launch.serve")
     device = resolve_device(args.device)
+    explicit = args.explicit_dp or args.overlap or args.zero
 
     init_group(device)
     try:
-        if dist.get_world_size() > 1 and not args.explicit_dp:
+        if dist.get_world_size() > 1 and not explicit:
             raise SystemExit("several ranks need --explicit-dp")
         trainer = Trainer(
             cfg, shape,
             OptConfig(peak_lr=args.lr, warmup_steps=args.warmup, decay_steps=args.steps),
-            TrainConfig(steps=args.steps, log_every=10, explicit_dp=args.explicit_dp,
-                        bucket_bytes=args.bucket_bytes, compress_bits=args.compress_bits),
+            TrainConfig(steps=args.steps, microbatches=args.microbatches,
+                        ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, log_every=10,
+                        explicit_dp=explicit, bucket_bytes=args.bucket_bytes,
+                        compress_bits=args.compress_bits, overlap=args.overlap,
+                        zero=args.zero),
             device=device)
-        result = trainer.run()
-        losses = [m["loss"] for m in result["metrics"]]
-        if losses and dist.get_rank() == 0:
-            print(f"done: step {result['final_step']}, loss {losses[0]:.4f} -> "
-                  f"{losses[-1]:.4f}, {result['final_devices']} rank(s) on {device}")
+        result = trainer.run(resume=args.resume)
+        rows = result["metrics"]
+        if rows and dist.get_rank() == 0:
+            later = [r["time_s"] * 1e3 for r in rows[1:]]
+            step_ms = f"{statistics.median(later):.3f} ms" if later else "not measured"
+            print(f"done: step {result['final_step']}, loss {rows[0]['loss']:.4f} -> "
+                  f"{rows[-1]['loss']:.4f}, {result['final_devices']} rank(s) on {device}, "
+                  f"median host time per step after the first {step_ms}")
     finally:
         dist.destroy_process_group()
     return 0

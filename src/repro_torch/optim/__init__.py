@@ -1,1 +1,2 @@
-from .adamw import OptConfig, apply_updates, global_norm, init_opt_state, schedule
+from .adamw import (OptConfig, abstract_opt_state, apply_updates, global_norm,
+                    init_opt_state, schedule)

@@ -55,6 +55,14 @@ def init_opt_state(params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def abstract_opt_state(params) -> Dict[str, Any]:
+    """`init_opt_state`'s shapes and dtypes as meta tensors (a checkpoint's
+    restore target)."""
+    meta32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    return {"m": _tree_map(meta32, params), "v": _tree_map(meta32, params),
+            "step": torch.empty((), dtype=torch.int32, device="meta")}
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(square(leaf)) in fp32, leaves added
     one by one from zero, in `jax.tree.leaves` order, as Python's `sum` does

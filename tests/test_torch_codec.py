@@ -220,7 +220,7 @@ def test_cuda_tensors_reach_the_codec_kernels_or_raise(monkeypatch):
             bc.pack(table, [leaves[0], leaves[1], leaves[2].float()])
     assert asked == ["bucket_pack", "bucket_pack", "bucket_unpack"]
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 0,
-                                   "bucket_unpack": 0}
+                                   "bucket_unpack": 0, "adamw_shard": 0}
 
 
 def test_cpu_codec_counts_no_launch():

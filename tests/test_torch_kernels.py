@@ -70,7 +70,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     sc = torch.ones(64)
     torch.testing.assert_close(ops.rmsnorm(x, sc), ref.rmsnorm_ref(x, sc), rtol=0, atol=0)
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 0,
-                                   "bucket_unpack": 0}
+                                   "bucket_unpack": 0, "adamw_shard": 0}
 
 
 def test_cuda_tensors_reach_the_kernel_or_raise(monkeypatch):
@@ -98,7 +98,7 @@ def test_cuda_tensors_reach_the_kernel_or_raise(monkeypatch):
             ops.flash_attention(x, x, x)
     assert asked == ["rmsnorm", "flash_attention"]
     assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "bucket_pack": 0,
-                                   "bucket_unpack": 0}
+                                   "bucket_unpack": 0, "adamw_shard": 0}
 
 
 def test_cuda_tensors_raise_without_a_card():

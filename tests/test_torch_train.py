@@ -377,28 +377,33 @@ def with_group(fn):
         dist.destroy_process_group()
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
+    """What stays unported raises: the two-tier (dcn_axis) reduction, and the
+    Trainer's fault, guard, straggler and retry fields."""
     cfg = get_config(ARCH).reduced()
     model = Model(cfg, device="cpu")
 
     def check():
-        for kw in ({"overlap": True}, {"zero": True}, {"microbatches": 2}, {"dcn_axis": "pod"}):
-            with pytest.raises(NotImplementedError):
+        for kw in ({"dcn_axis": "pod"}, {"dcn_axis": "pod", "zero": True}):
+            with pytest.raises(NotImplementedError, match="A6.3"):
                 steps.build_explicit_dp_step(model, adamw.OptConfig(), **kw)
         with pytest.raises(ValueError, match="compress_bits"):
             steps.build_explicit_dp_step(model, adamw.OptConfig(), compress_bits=4)
     with_group(check)
-    for kw in ({"ckpt_every": 5}, {"guard": True}, {"faults": "messy:0"}):
+    for kw in ({"guard": True}, {"faults": "messy:0"}, {"straggler_action": "sync"},
+               {"max_retries": 3}):
         with pytest.raises(NotImplementedError):
-            Trainer(cfg, SHAPES["train_4k"].reduced(), train_cfg=TrainConfig(**kw), device="cpu")
+            Trainer(cfg, SHAPES["train_4k"].reduced(),
+                    train_cfg=TrainConfig(ckpt_dir=str(tmp_path), **kw), device="cpu")
     with pytest.raises(ValueError, match="process group"):
-        Trainer(cfg, SHAPES["train_4k"].reduced(), train_cfg=TrainConfig(explicit_dp=True),
-                device="cpu")
+        Trainer(cfg, SHAPES["train_4k"].reduced(),
+                train_cfg=TrainConfig(explicit_dp=True, ckpt_dir=str(tmp_path)), device="cpu")
 
 
-def test_trainer_without_explicit_dp_trains_on_one_process():
+def test_trainer_without_explicit_dp_trains_on_one_process(tmp_path):
     cfg = get_config(ARCH).reduced()
-    tr = Trainer(cfg, SHAPES["train_4k"].reduced(), train_cfg=TrainConfig(steps=2), device="cpu")
+    tr = Trainer(cfg, SHAPES["train_4k"].reduced(),
+                 train_cfg=TrainConfig(steps=2, ckpt_dir=str(tmp_path)), device="cpu")
     res = tr.run()
     assert res["final_step"] == 2 and res["final_devices"] == 1
     assert [sorted(r) for r in res["metrics"]] == [["grad_norm", "loss", "lr", "step",
@@ -407,13 +412,14 @@ def test_trainer_without_explicit_dp_trains_on_one_process():
 
 
 # ----------------------------------------------------------------- launcher
-def test_launch_train_explicit_dp_on_cpu(capsys):
+def test_launch_train_explicit_dp_on_cpu(capsys, tmp_path):
     assert launch_train.main(["--arch", ARCH, "--reduced", "--explicit-dp", "--device", "cpu",
                               "--steps", "2", "--bucket-bytes", "65536",
-                              "--compress-bits", "8"]) == 0
+                              "--compress-bits", "8", "--ckpt-dir", str(tmp_path)]) == 0
     out = capsys.readouterr().out
     assert "step     0 loss" in out and "gnorm" in out
     assert "done: step 2" in out and "1 rank(s) on cpu" in out
+    assert "median host time per step after the first" in out
 
 
 def test_launch_train_refuses_cuda_without_a_card():
